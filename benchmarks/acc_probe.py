@@ -16,14 +16,12 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import hdsdp_tpu  # noqa: E402,F401  (x64, matmul precision)
+from hdsdp_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,7 +1,7 @@
 """Throughput of batched multi-instance solving vs solo solves.
 
-The small-m latency floor (mcp100: ~2.2 s/instance on TPU, dominated by
-~34 dispatch-bound IPM iterations) amortizes across a vmapped fleet:
+The small-m latency floor (dominated by ~34 dispatch-bound IPM
+iterations) amortizes across a vmapped fleet:
 one set of fused dispatches solves every instance.  Usage:
 
     python benchmarks/batch_bench.py [n] [batch]   # default n=100 batch=8
@@ -11,16 +11,12 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import hdsdp_tpu  # noqa: E402,F401  (x64, matmul precision)
+from hdsdp_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+enable_compile_cache()
 
 import json
 

@@ -5,7 +5,7 @@ Counterpart of the reference's ``test_primal_primal_dual_bench``
 with the primal-only phase enabled vs disabled, comparing wall time,
 iteration count and status.
 
-    python benchmarks/lp_bench.py examples/afiro.mps [--repeats 3]
+    python benchmarks/lp_bench.py tests/data/lp_medium.mps [--repeats 3]
 """
 
 import argparse
@@ -14,12 +14,11 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
-import jax
+import hdsdp_tpu  # noqa: E402,F401  (x64, matmul precision)
+from hdsdp_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+enable_compile_cache()
 
 
 def main():

@@ -8,18 +8,17 @@ section 3.2 hot loop) at a fixed problem size over growing meshes
   * distributed blocked Cholesky of M (parallel.dchol.sharded_cholesky),
   * the 3-RHS triangular solves (parallel.dchol.sharded_chol_solve).
 
-Run with virtual devices (the real-pod analogue is the same code over
-ICI; see MULTICHIP notes):
+Run with virtual devices (several real devices run the same code):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORMS=cpu python benchmarks/mesh_bench.py
 
-Host CPU caveat: virtual devices share the machine's physical cores
-(nproc on this box: 4), so the total compute throughput is CONSTANT
+Host CPU caveat: virtual devices share the machine's physical cores,
+so the total compute throughput is CONSTANT
 across mesh sizes here; the strong-scaling signal is therefore "time
 stays flat as devices split the same work" -- any rise is pure
 collective/partition overhead, which is the thing worth measuring on a
-host.  Real speedup needs a real pod.  The numbers also certify that
+host.  Real speedup needs real devices.  The numbers also certify that
 per-device memory scales: M is born row-sharded and no device ever
 holds all of it.
 """
@@ -34,9 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-jax.config.update("jax_enable_x64", True)
+import hdsdp_tpu  # noqa: E402,F401  (x64, matmul precision)
 
 import jax.numpy as jnp
 import numpy as np

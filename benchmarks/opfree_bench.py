@@ -1,9 +1,9 @@
 """Matrix-free operator-mode scale benchmark: solve a theta-class
 instance whose dense Schur matrix could not exist on the device.
 
-At m = 40001 a dense f64 M is 12.8 GB — more than any single
-factorization could afford next to the cone buffers on a 16 GB device.
-Operator mode (kkt_mode="free", auto above m >= 20000) never forms M:
+At m = 40001 a dense f64 M is 12.8 GB.  Operator mode (kkt_mode="free",
+auto where a dense M would crowd the device, solver.memory.kkt_free)
+never forms M:
 every KKT solve is Jacobi-PCG on M v = A(S^-1 (sum_j v_j A_j) S^-1).
 
 Usage:
@@ -13,18 +13,17 @@ Usage:
 import json
 import os
 import sys
+import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+import hdsdp_tpu  # noqa: E402,F401  (x64, matmul precision)
+from hdsdp_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -42,7 +41,7 @@ print(f"[opfree] m={prob.m} n={max(prob.block_dims)} presolve "
       f"{time.time() - t0:.1f}s  dense-M-would-be "
       f"{prob.m * prob.m * 8 / 2**30:.1f} GB", flush=True)
 
-STATE = f"/tmp/opfree_{n}_{edges}_state.npz"
+STATE = os.path.join(tempfile.gettempdir(), f"opfree_{n}_{edges}_state.npz")
 
 t0 = time.time()
 _tl = float(os.environ.get("HDSDP_OPFREE_TL", "0"))

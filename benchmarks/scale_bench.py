@@ -4,7 +4,7 @@ across synthetic instances, single chip.
     python benchmarks/scale_bench.py [--sizes m:n,m:n,...] [--json]
 
 mcp100-class problems (m = n = 100) are latency-floor-limited on an
-accelerator; the MXU path pays off from m ~ 512 upward.  The reference's
+accelerator.  The reference's
 own published baseline is mcp100 in 0.1 s on one CPU thread
 (doc/hdsdp_doc.tm:1598); everything larger has no published number, so
 this sweep is the rebuild's scaling record.
@@ -17,13 +17,11 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
-import jax
+import hdsdp_tpu  # noqa: E402,F401  (x64, matmul precision)
+from hdsdp_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+enable_compile_cache()
 
 import numpy as np
 

@@ -12,21 +12,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
-
-# honor JAX_PLATFORMS even when an out-of-tree platform plugin would
-# otherwise take priority (config update wins where the env var doesn't)
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="hdsdp_tpu",
-        description="TPU-native dual-scaling interior-point SDP/LP solver",
+        description="dual-scaling interior-point SDP/LP solver",
     )
     ap.add_argument("file", help="problem file (.dat-s for SDP, .mps for LP)")
     ap.add_argument("--dual-only", action="store_true",
@@ -39,6 +31,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-fused", action="store_true",
                     help="use the host-driven reference loop")
     args = ap.parse_args(argv)
+
+    from hdsdp_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     fname = args.file.lower()
     overrides = {"verbose": not args.quiet}

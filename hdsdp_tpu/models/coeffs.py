@@ -1,6 +1,7 @@
 """Per-constraint coefficient analysis (presolve).
 
-Parity with the reference coefficient machinery, redesigned for TPU:
+Parity with the reference coefficient machinery, redesigned for batched
+accelerator kernels:
 
   * The reference classifies each A_i into ZERO / SPARSE / DENSE / SPR1 / DSR1
     (ref linalg/hdsdp_sdpdata.c:2321-2345, threshold: dense if
@@ -13,7 +14,7 @@ Parity with the reference coefficient machinery, redesigned for TPU:
        - low-rank: factors (lambda_k, u_k), rank <= rank_cap
        - dense:    full n x n matrix
 
-    On TPU the low-rank bucket turns the Schur complement into batched
+    The low-rank bucket turns the Schur complement into batched
     matmuls; the dense bucket uses batched congruence transforms.  The
     CPU-oriented per-row M1-M5 strategy dispatch
     (ref sdpDenseConeIChooseKKTStrategy, hdsdp_conic_sdp.c:539-600) is

@@ -1,6 +1,6 @@
 """Problem intermediate representation: bucketed, batched cone data.
 
-Converts raw SDPA data into the TPU layout:
+Converts raw SDPA data into the batched device layout:
 
   * SDP blocks are grouped by dimension; each group is a batch [g, n, n].
   * Constraint coefficients live in two buckets per group

@@ -158,8 +158,14 @@ def theta_sdpa(n: int = 300, n_edges: int = 4374, seed: int = 0) -> SDPAData:
     # sample distinct edges
     flat = rng.choice(max_edges, size=n_edges, replace=False)
     iu, ju = np.triu_indices(n, 1)
-    ei, ej = iu[flat], ju[flat]  # ei < ej
+    return theta_from_edges(n, iu[flat], ju[flat])
 
+
+def theta_from_edges(n: int, ei, ej) -> SDPAData:
+    """Lovász theta SDP (see :func:`theta_sdpa`) of the graph on n
+    vertices with edges (ei[k], ej[k])."""
+    ei, ej = np.minimum(ei, ej), np.maximum(ei, ej)  # ei < ej
+    n_edges = len(ei)
     m = 1 + n_edges
     b = np.zeros(m)
     b[0] = 1.0

@@ -130,20 +130,8 @@ def pcg(
     )
 
 
-def use_inverted_precond(m: int) -> bool:
-    """Inverted-preconditioner gate: on TPU the triangular-solve
-    expander is both slow and memory-hungry (an [k, m, m] f32 temp per
-    multi-RHS apply), so panel-inverting once at factor time wins for
-    any m large enough that the O(m^3) MXU inversion amortizes over the
-    refinement sweeps; on CPU LAPACK trsm is fast and the inversion is
-    pure overhead."""
-    from hdsdp_tpu.utils.platform import is_tpu
-
-    return m >= 512 and is_tpu()
-
-
-@partial(jax.jit, static_argnames=("f32", "inv"))
-def _equilibrated_factor(M, f32: bool = True, inv: bool = False):
+@partial(jax.jit, static_argnames=("f32",))
+def _equilibrated_factor(M, f32: bool = True):
     """Jacobi-equilibrated Cholesky preconditioner of an f64 SPD M.
 
     D^-1/2 M D^-1/2 has unit diagonal and entries in [-1, 1] (SPD), so
@@ -151,12 +139,6 @@ def _equilibrated_factor(M, f32: bool = True, inv: bool = False):
     the equilibration is also the optimal diagonal preconditioning up to
     a factor n.  Returns (L, s, ok) with s = 1/sqrt(diag(M)); L is f32
     (the fast path) or f64 (the escalation tier for kappa > 1/eps_f32).
-
-    ``inv`` returns L^-1 (blocked panel inversion) instead of L: the
-    preconditioner application then needs only two MXU matmuls per
-    sweep, where XLA's multi-RHS triangular-solve expander allocates an
-    [k, m, m] batch temp (3.4 GB at m~10k — the torus-22 OOM) and its
-    per-solve latency dominates the refinement loop on TPU.
     """
     d = jnp.diag(M)
     s = jax.lax.rsqrt(jnp.where(d > 0.0, d, 1.0))
@@ -165,119 +147,59 @@ def _equilibrated_factor(M, f32: bool = True, inv: bool = False):
         Ms = Ms.astype(jnp.float32)
     L = jnp.linalg.cholesky(Ms)
     ok = jnp.all(jnp.isfinite(L))
-    if inv:
-        from hdsdp_tpu.ops.chol import blocked_tri_inverse
-
-        L = blocked_tri_inverse(jnp.where(ok, L, jnp.eye(
-            M.shape[0], dtype=L.dtype)))
-        # a near-zero factor diagonal overflows the explicit inverse
-        # where a triangular solve would have limped through: fail fast
-        # at factor time instead of relying on the refinement stall
-        # detector to escalate (ADVICE r2)
-        ok = jnp.logical_and(ok, jnp.all(jnp.isfinite(L)))
     return L, s, ok
 
 
 @jax.jit
 def factor_scaled_f32(Ms):
-    """Inverted Cholesky factor of an ALREADY-equilibrated f32 SPD matrix
-    (unit diagonal): returns (Linv, ok).  The operator-mode preconditioner
-    path materializes M directly in equilibrated f32 chunks (no f64 m x m
+    """Cholesky factor of an ALREADY-equilibrated f32 SPD matrix (unit
+    diagonal): returns (L, ok).  The operator-mode preconditioner path
+    materializes M directly in equilibrated f32 chunks (no f64 m x m
     ever exists), so this is `_equilibrated_factor` minus the scaling."""
-    from hdsdp_tpu.ops.chol import blocked_tri_inverse
-
     L = jnp.linalg.cholesky(Ms)
-    ok = jnp.all(jnp.isfinite(L))
-    Linv = blocked_tri_inverse(
-        jnp.where(ok, L, jnp.eye(Ms.shape[0], dtype=L.dtype))
-    )
-    ok = jnp.logical_and(ok, jnp.all(jnp.isfinite(Linv)))
-    return Linv, ok
+    return L, jnp.all(jnp.isfinite(L))
 
 
-def use_dd_full_tier(m: int) -> bool:
-    """Full-precision-tier backend gate for AdaptiveCG: on TPU at scale
-    the escalation past f32 runs the double-single blocked MXU factor
-    (ops.ddchol, ~2^-45 — kappa coverage to ~3e13) instead of XLA's
-    emulated f64 Cholesky, whose factor AND triangular applies dominate
-    the endgame (round-5 torus-22 ledger: ~570 s of a 660 s KKT-solve
-    total).  Below the gate the f64 latency floor is irrelevant."""
-    from hdsdp_tpu.utils.platform import is_tpu
-
-    return m >= 4096 and is_tpu()
-
-
-def use_hp_residual(m: int) -> bool:
-    """Residual-matmul backend gate for refine_solve: XLA's emulated-f64
-    dot_general materializes an [8, m, k_contract] f32 operand expansion
-    per call (3.4 GB at m~10k — the torus-22 OOM's largest allocation),
-    so at large m on TPU the residual R = B - M X runs through the
-    Ozaki-sliced MXU matmul instead (ops.hpmm, ~2^-45 accurate): M is
-    sliced ONCE per factorization into [6, m, m] bf16 (12 B/elem vs the
-    expansion's 32) and each sweep costs plain bf16 MXU passes."""
-    from hdsdp_tpu.utils.platform import is_tpu
-
-    return m >= 8192 and is_tpu()
-
-
-@partial(jax.jit, static_argnames=("max_iter", "pre_inverted", "hp_residual"))
+@partial(jax.jit, static_argnames=("max_iter",))
 def refine_solve(M, L32, s, B, max_iter: int = 40,
-                 abs_tol: float = 1e-10, rel_tol: float = 1e-10,
-                 pre_inverted: bool = False, hp_residual: bool = False):
+                 abs_tol: float = 1e-10, rel_tol: float = 1e-10):
     """Mixed-precision iterative refinement: f32 factor, f64 residuals.
 
     Solves M X = B [m, k] to f64 accuracy using only the f32 Cholesky
-    preconditioner from :func:`_f32_factor` plus f64 matmuls:
+    preconditioner from :func:`_equilibrated_factor` (two triangular
+    solves per apply) plus f64 matmuls:
 
         X += D^-1/2 (L32 L32^T)^-1 D^-1/2 R,   R = B - M X.
 
     Each sweep contracts the error by ~kappa(M) * eps_f32; near an IPM's
     endgame kappa can exceed 1/eps_f32, in which case the loop stalls
     and the caller escalates to a full-precision factorization.  This is
-    the TPU-native analogue of the reference's Cholesky-preconditioned
-    CG with a *stale* factor (ref conjGradSolve hdsdp_linsolver.c:
+    the analogue of the reference's Cholesky-preconditioned CG with a
+    *stale* factor (ref conjGradSolve hdsdp_linsolver.c:
     1446-1588 + the ADPCG refresh policy): the expensive O(m^3) work
     runs in fast native f32, the O(m^2 k) residuals keep f64.
     """
 
     bnorm = jnp.max(jnp.linalg.norm(B, axis=0))
     # infinity norm of M for the backward-stable acceptance level: a
-    # residual below ~eps * (|B| + |M||X|) is what an exact direct solve
-    # at the residual-evaluation precision would leave -- demanding less
-    # is unreachable at high kappa.  With hp_residual the evaluation
-    # noise floor is the Ozaki slicing's ~2^-45, still well inside
-    # LAPACK dpotrs' O(n)*eps64 backward-error guarantee at m >= 8192
+    # residual below ~eps * (|B| + |M||X|) is what an exact f64 direct
+    # solve would leave -- demanding less is unreachable at high kappa
     # (ref hdsdp_linsolver.c:1204-1236 semantics).
     mnorm = jnp.max(jnp.sum(jnp.abs(M), axis=1))
     eps64 = jnp.float64(2.220446049250313e-16)
-    eps_res = jnp.float64(2.0 ** -45) if hp_residual else eps64
-
-    if hp_residual:
-        from hdsdp_tpu.ops import hpmm as hpmm_ops
-
-        m_sl, e_m = hpmm_ops.hpmm_slice_a(M)
-
-        def mdot(X):
-            return hpmm_ops.hpmm_presliced(m_sl, e_m, X)
-    else:
-        def mdot(X):
-            return M @ X
 
     def apply_p(R):
         U = (s[:, None] * R).astype(L32.dtype)
-        if pre_inverted:  # L32 is L^-1: two plain matmuls
-            T = L32.T @ (L32 @ U)
-        else:
-            T = chol_apply(L32, U)
+        T = chol_ops.chol_solve(L32, U)
         return s[:, None] * T.astype(jnp.float64)
 
     def tol_for(X):
         xnorm = jnp.max(jnp.linalg.norm(X, axis=0))
-        stable = 16.0 * eps_res * (bnorm + mnorm * xnorm)
+        stable = 16.0 * eps64 * (bnorm + mnorm * xnorm)
         return jnp.maximum(jnp.maximum(abs_tol, rel_tol * bnorm), stable)
 
     X0 = apply_p(B)
-    R0 = B - mdot(X0)
+    R0 = B - M @ X0
     rn0 = jnp.max(jnp.linalg.norm(R0, axis=0))
 
     def cond(c):
@@ -287,7 +209,7 @@ def refine_solve(M, L32, s, B, max_iter: int = 40,
     def body(c):
         X, R, rn_prev, it, status = c
         X = X + apply_p(R)
-        R = B - mdot(X)
+        R = B - M @ X
         rn = jnp.max(jnp.linalg.norm(R, axis=0))
         status = jnp.where(rn != rn, STATUS_NUMERICAL, status)
         status = jnp.where(
@@ -315,14 +237,6 @@ def refine_solve(M, L32, s, B, max_iter: int = 40,
         cond, body, (X0, R0, rn0, jnp.asarray(0, jnp.int32), init_status)
     )
     return X, status, it
-
-
-def chol_apply(L, U):
-    """(L L^T)^-1 U with both triangular solves in L's dtype."""
-    from jax.scipy.linalg import solve_triangular
-
-    T = solve_triangular(L, U, lower=True)
-    return solve_triangular(L, T, lower=True, trans=1)
 
 
 class AdaptiveCG:
@@ -369,31 +283,7 @@ class AdaptiveCG:
         import time as _time
 
         t0 = _time.time()
-        if not f32 and use_dd_full_tier(M.shape[0]):
-            # full-precision tier on TPU at scale: the double-single
-            # blocked MXU factor (~2^-45, covers kappa to ~3e13) instead
-            # of XLA's emulated f64 Cholesky + emulated f64 triangular
-            # applies.  Round-5 torus-22 ledger: the f64 tier's 22
-            # factors + their refine applies were ~570 s of the 660 s
-            # KKT solve total; the DD factor solves apply on the MXU.
-            from . import ddchol
-
-            fac = ddchol.factor(M)
-            self.n_factor += 1
-            self._fresh = True
-            if not bool(ddchol.ok(fac)):
-                self.chol_fac = None
-                self.history.append(("factor_dd", "fail", _time.time() - t0))
-                return False
-            # pre-invert: G = L^-1 as a DD pair, so every solve apply is
-            # two MXU hpmm_dd matmuls instead of a panel-serial
-            # substitution (stale DD refines were 1.7 s/call without it)
-            gh, gl = ddchol.tri_inverse(fac)
-            self.chol_fac = ((gh, gl), None, "dd")
-            self.history.append(("factor_dd", "ok", _time.time() - t0))
-            return True
-        inv = f32 and use_inverted_precond(M.shape[0])
-        L, s, ok = _equilibrated_factor(M, f32=f32, inv=inv)
+        L, s, ok = _equilibrated_factor(M, f32=f32)
         self.n_factor += 1
         self._fresh = True
         if not bool(ok):
@@ -403,80 +293,21 @@ class AdaptiveCG:
                  _time.time() - t0)
             )
             return False
-        self.chol_fac = (L, s, inv)
+        self.chol_fac = (L, s)
         self.history.append(
             ("factor32" if f32 else "factor64", "ok", _time.time() - t0)
         )
         return True
 
-    def _refine_dd(self, M, B):
-        """Refinement sweeps against the pre-inverted DD factor: every
-        O(m^2)+ piece (residual matmul, G applies) runs on the MXU; the
-        acceptance level matches refine_solve's backward-stable floor."""
-        from . import dd as dd_ops
-        from . import hpmm as hpmm_g
-
-        gh, gl = self.chol_fac[0]
-        m = M.shape[0]
-        npad = gh.shape[0]
-
-        def papply(R):
-            # A^-1 R = G^T (G R), all DD on the MXU
-            Rp = jnp.pad(R, ((0, npad - m), (0, 0))) if npad != m else R
-            rh, rl = dd_ops.from_f64(Rp)
-            yh, yl = hpmm_g.hpmm_dd(gh, gl, rh, rl)
-            xh, xl = hpmm_g.hpmm_dd(gh.T, gl.T, yh, yl)
-            return dd_ops.to_f64(xh, xl)[:m]
-
-        hp = use_hp_residual(m)
-        if hp:
-            from hdsdp_tpu.ops import hpmm as hpmm_ops
-
-            m_sl, e_m = hpmm_ops.hpmm_slice_a(M)
-
-            def mdot(X):
-                return hpmm_ops.hpmm_presliced(m_sl, e_m, X)
-
-            eps_res = 2.0 ** -45
-        else:
-            def mdot(X):
-                return M @ X
-
-            eps_res = 2.220446049250313e-16
-        bnorm = float(jnp.max(jnp.linalg.norm(B, axis=0)))
-        mnorm = float(jnp.max(jnp.sum(jnp.abs(M), axis=1)))
-        X = papply(B)
-        it = 0
-        rn_prev = None
-        for it in range(1, self.max_iter + 1):
-            R = B - mdot(X)
-            rn = float(jnp.max(jnp.linalg.norm(R, axis=0)))
-            if rn != rn:
-                return X, STATUS_NUMERICAL, it
-            xnorm = float(jnp.max(jnp.linalg.norm(X, axis=0)))
-            stable = 16.0 * eps_res * (bnorm + mnorm * xnorm)
-            tol = max(self.abs_tol, self.rel_tol * bnorm, stable)
-            if rn < tol:
-                return X, STATUS_OK, it
-            if rn_prev is not None and rn > 0.9 * rn_prev:
-                return X, STATUS_MAXITER, it
-            rn_prev = rn
-            X = X + papply(R)
-        return X, STATUS_MAXITER, it
-
     def _refine(self, M, rhs_mat):
         import time as _time
 
         t0 = _time.time()
-        L, s, inv = self.chol_fac
-        if inv == "dd":
-            X, status, iters = self._refine_dd(M, rhs_mat)
-        else:
-            X, status, iters = refine_solve(
-                M, L, s, rhs_mat, max_iter=self.max_iter,
-                abs_tol=self.abs_tol, rel_tol=self.rel_tol,
-                pre_inverted=inv, hp_residual=use_hp_residual(M.shape[0]),
-            )
+        L, s = self.chol_fac
+        X, status, iters = refine_solve(
+            M, L, s, rhs_mat, max_iter=self.max_iter,
+            abs_tol=self.abs_tol, rel_tol=self.rel_tol,
+        )
         self.last_iters = int(iters)
         self.last_status = int(status)
         self.history.append(
@@ -513,8 +344,8 @@ class AdaptiveCG:
         """Solve M X = rhs_mat [m, k].  Returns (X [m, k], ok).
 
         Tiers: stale factor -> fresh f32 factor -> fresh f64 factor ->
-        report failure (caller escalates to the direct ladder, e.g. the
-        double-single factorization, ref hdsdp_linsolver.c:1827-1857).
+        report failure (caller escalates to the direct ladder,
+        ref hdsdp_linsolver.c:1827-1857).
         After an f32 fresh-factor failure the policy prefers f64 factors
         for the next few systems, then retries f32 (conditioning
         fluctuates across IPM iterations).
@@ -536,9 +367,7 @@ class AdaptiveCG:
                 if self.last_iters > self.reuse_threshold:
                     self.chol_fac = None  # refresh on the next system
                 return X, True
-            full_tier = self.chol_fac[2] == "dd" or (
-                getattr(self.chol_fac[0], "dtype", None) == jnp.float64
-            )
+            full_tier = self.chol_fac[0].dtype == jnp.float64
             if self._fresh and full_tier:
                 self.chol_fac = None
                 return X, False  # fresh full-precision factor failed

@@ -23,9 +23,8 @@ def chol_ok(L: jnp.ndarray) -> jnp.ndarray:
     """True iff the factorization succeeded (matrix was PD).
 
     Implemented arithmetically (sum of L - L is NaN iff any entry is
-    NaN/Inf) instead of ``jnp.all(jnp.isfinite(L))``: large boolean
-    intermediates inside ``lax.cond`` branches crash the TPU compiler's
-    HloReplicationAnalysis (shape_util check failure on pred arrays).
+    NaN/Inf): one reduction, no [n, n] boolean intermediate inside the
+    ``lax.cond`` branches that call it.
     """
     s = jnp.sum(L - L)
     return s == 0.0
@@ -37,27 +36,6 @@ def psd_check(S: jnp.ndarray):
     return chol_ok(L), L
 
 
-def psd_factor(S: jnp.ndarray, use_dd: bool = False):
-    """(ok, L) with an optional DD (double-single MXU) backend.
-
-    ``use_dd`` routes single-block batches [1, n, n] through the blocked
-    double-single Cholesky (ops.ddchol) and converts the factor back to
-    f64 — same PSD-predicate semantics (a non-PD input NaNs the panel
-    sqrt exactly like dpotrf's info > 0), ~2^-45 accurate factor, at MXU
-    speed instead of XLA's emulated-f64 VPU Cholesky.  Multi-block
-    batches keep the XLA path (small blocks are latency-bound either
-    way, and ddchol is unbatched)."""
-    n = S.shape[-1]
-    if use_dd and S.ndim == 3 and S.shape[0] == 1 and n >= 512:
-        from hdsdp_tpu.ops import dd as dd_ops
-        from hdsdp_tpu.ops import ddchol
-
-        f = ddchol.factor(S[0])
-        L = dd_ops.to_f64(f.lh, f.ll)[:n, :n][None]
-        return ddchol.ok(f), L
-    return psd_check(S)
-
-
 def chol_logdet(L: jnp.ndarray) -> jnp.ndarray:
     """log det(S) = 2 sum log diag(L) (ref sdpDenseConeGetBarrier,
     hdsdp_conic_sdp.c:2279-2287), summed over the batch."""
@@ -65,28 +43,9 @@ def chol_logdet(L: jnp.ndarray) -> jnp.ndarray:
     return 2.0 * jnp.sum(jnp.log(d))
 
 
-def chol_inverse(L: jnp.ndarray, use_dd: bool = False) -> jnp.ndarray:
-    """S^{-1} from the Cholesky factor (ref HFpLinsysInvert -> dpotri).
-
-    ``use_dd`` routes single large blocks through the DD (MXU) blocked
-    inverse built from the existing f64 factor — the emulated-f64
-    trisolve-on-identity is the dominant per-build cost at n >= ~2048.
-
-    At n >= 8192 on TPU the routing is forced regardless of ``use_dd``:
-    XLA's triangular-solve expander cannot compile an n-RHS inversion at
-    that size at all (it wedges the backend; observed on torus-22
-    primal recovery, n = 10648), so the trisolve path is never emitted
-    there."""
+def chol_inverse(L: jnp.ndarray) -> jnp.ndarray:
+    """S^{-1} from the Cholesky factor (ref HFpLinsysInvert -> dpotri)."""
     n = L.shape[-1]
-    force_dd = False
-    if not use_dd and L.ndim == 3 and L.shape[0] == 1 and n >= 8192:
-        from hdsdp_tpu.utils.platform import is_tpu
-
-        force_dd = is_tpu()
-    if (use_dd or force_dd) and L.ndim == 3 and L.shape[0] == 1 and n >= 512:
-        from hdsdp_tpu.ops import ddchol
-
-        return ddchol.spd_inverse_from_f64_tri(L[0])[None]
     eye = jnp.broadcast_to(jnp.eye(n, dtype=L.dtype), L.shape)
     Linv = solve_triangular(L, eye, lower=True)
     return jnp.einsum("...ki,...kj->...ij", Linv, Linv)
@@ -95,67 +54,6 @@ def chol_inverse(L: jnp.ndarray, use_dd: bool = False) -> jnp.ndarray:
 def chol_solve(L: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     y = solve_triangular(L, b, lower=True)
     return solve_triangular(L, y, lower=True, trans=1)
-
-
-def blocked_tri_inverse(L: jnp.ndarray, block: int = 512) -> jnp.ndarray:
-    """L^-1 of a lower-triangular [m, m] matrix by panel matmuls.
-
-    XLA's TPU triangular-solve expander materializes an [k, m, m] batch
-    temp per multi-RHS solve (3.4 GB at m~10k, k=8) and fails to compile
-    an m-RHS inversion outright; this routine replaces it with the
-    standard row-block forward recurrence
-
-        X[i,:] = W_i @ (E_i - L[i,:i] @ X[:i,:]),   W_i = inv(L[i,i])
-
-    driven by one ``lax.fori_loop`` whose body is a single [B, m] x
-    [m, m] MXU matmul — O(m B) temps, O(m^3) flops, compiler-friendly
-    static shapes.  The diagonal-block inverses W are a [npan, B, B]
-    batched small solve.  Pads m to a block multiple with an identity
-    tail (exact: the padded rows/cols stay e_i).
-
-    The pad granularity is 128 (one MXU tile), NOT the panel size: the
-    panel is then chosen as the largest power-of-two multiple of 128
-    that divides the padded dimension and fits ``block``.  Padding to
-    the panel size itself wastes up to (B-1) rows of O(m^3) work — e.g.
-    m=600 at B=512 would invert a 1024x1024 (~4.9x the flops); with the
-    128-granular pad it inverts a 640x640 in 128-row panels (~1.2x).
-    """
-    m = L.shape[0]
-    mp = -(-m // 128) * 128
-    B = 128
-    while B * 2 <= min(block, mp) and mp % (B * 2) == 0:
-        B *= 2
-    if mp != m:
-        Lp = jnp.eye(mp, dtype=L.dtype).at[:m, :m].set(L)
-    else:
-        Lp = L
-    npan = mp // B
-    # W[k] = inv(L[k,k]): [npan, B, B] batched, small enough for the
-    # expander (B x B eye RHS per block)
-    diag_blocks = jax.vmap(
-        lambda k: jax.lax.dynamic_slice(Lp, (k * B, k * B), (B, B))
-    )(jnp.arange(npan))
-    eyeB = jnp.broadcast_to(jnp.eye(B, dtype=L.dtype), (npan, B, B))
-    W = solve_triangular(diag_blocks, eyeB, lower=True)
-
-    X0 = jnp.zeros((mp, mp), dtype=L.dtype)
-
-    def body(i, X):
-        row0 = i * B
-        Lrow = jax.lax.dynamic_slice(Lp, (row0, 0), (B, mp))
-        # zero the diagonal-and-right part: columns >= i*B contribute
-        # nothing (X rows there are still zero) except the diagonal
-        # block, which must not enter the recurrence
-        col = jnp.arange(mp)
-        Lleft = jnp.where(col[None, :] < row0, Lrow, 0.0)
-        prod = Lleft @ X  # [B, mp]
-        rowX = -(W[i] @ prod)
-        # diagonal block of the inverse
-        rowX = jax.lax.dynamic_update_slice(rowX, W[i], (0, row0))
-        return jax.lax.dynamic_update_slice(X, rowX, (row0, 0))
-
-    X = jax.lax.fori_loop(0, npan, body, X0)
-    return X[:m, :m]
 
 
 def congruence(L: jnp.ndarray, W: jnp.ndarray) -> jnp.ndarray:

@@ -9,7 +9,7 @@ Two implementations:
     order as the Cholesky work already done per iteration);
   * lanczos_ratio_test: fixed-size Krylov iteration under jit, mirroring
     the reference's 30-dim Lanczos with residual-based safeguard
-    (ref hdsdp_lanczos.c:161-292), preferable for large n on TPU.
+    (ref hdsdp_lanczos.c:161-292), preferable for large n.
 """
 
 from __future__ import annotations
@@ -102,6 +102,21 @@ def lanczos_ratio_test(L: jnp.ndarray, dS: jnp.ndarray, v0: jnp.ndarray, krylov:
     return step, Mz1
 
 
+def _built_block(T, i, k: int):
+    """T[:k,:k] with rows/cols > i zeroed and their diagonal set below the
+    built block's spectrum (-2 * (max row sum + 1)), so that the top
+    eigenpairs are the built block's.  The filler stays on the built
+    block's scale: an eigh whose stopping test is relative to the whole
+    matrix's norm (a Jacobi eigh, as GPUs use for small matrices) leaves
+    the built block undiagonalized next to a huge filler."""
+    idx = jnp.arange(k)
+    off = idx > i  # rows beyond the built subspace
+    Tm = jnp.where(off[:, None] | off[None, :], 0.0, T[..., :k, :k])
+    pad = -2.0 * (jnp.max(jnp.sum(jnp.abs(Tm), axis=-1), axis=-1) + 1.0)
+    filler = jnp.where(off, pad[..., None], 0.0)
+    return Tm + filler[..., None] * jnp.eye(k, dtype=T.dtype)
+
+
 @partial(jax.jit, static_argnames=("krylov", "check_freq"))
 def lanczos_ratio_test_adaptive(
     L: jnp.ndarray,
@@ -122,20 +137,13 @@ def lanczos_ratio_test_adaptive(
     batch = L.shape[:-2]
     n = L.shape[-1]
     k = min(krylov, n)
-    # diagonal filler for not-yet-built rows: far below any real
-    # eigenvalue, but safe to square in f32
-    neg_pad = jnp.asarray(-1e12, L.dtype)
 
     v = v0 / jnp.linalg.norm(v0, axis=-1, keepdims=True)
     V0 = jnp.zeros(batch + (k + 1, n), dtype=L.dtype).at[..., 0, :].set(v)
     T0 = jnp.zeros(batch + (k + 1, k + 1), dtype=L.dtype)
 
     def masked_tri(T, i):
-        """T[:k,:k] with rows/cols > i zeroed and diag padded to neg_pad."""
-        idx = jnp.arange(k)
-        off = idx > i  # rows beyond the built subspace
-        Tm = jnp.where(off[:, None] | off[None, :], 0.0, T[..., :k, :k])
-        return Tm + jnp.diag(jnp.where(off, neg_pad, 0.0).astype(L.dtype))
+        return _built_block(T, i, k)
 
     def step_i(V, T, i):
         vi = jnp.take(V, i, axis=-2)
@@ -205,7 +213,7 @@ def lanczos_ratio_test_adaptive(
 
 
 # exact-ratio threshold: below this dimension the batched eigh is
-# cheaper than 30 sequential Lanczos matvecs on TPU
+# taken to be cheaper than 30 sequential Lanczos matvecs
 AUTO_LANCZOS_DIM = 192
 
 
@@ -227,7 +235,7 @@ def block_ratio(
     The Lanczos path may run in f32 (use_f32): the estimate only sizes a
     trial step, and every accepted step is re-verified by an f64 interior
     check downstream; a 0.995 safety factor absorbs the reduced-precision
-    error in the bound.  f64 Lanczos on TPU is ~10x slower (emulated).
+    error in the bound.
     """
     n = L.shape[-1]
     if mode == "exact" or (mode == "auto" and n < AUTO_LANCZOS_DIM):

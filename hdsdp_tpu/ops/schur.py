@@ -1,6 +1,6 @@
 """Schur-complement assembly: M_ij = sum_cones tr(A_i S^-1 A_j S^-1).
 
-TPU-first replacement for the reference's per-row M1-M5 strategy kernels
+Batched replacement for the reference's per-row M1-M5 strategy kernels
 (ref interface/hdsdp_conic_sdp.c:687-985 and the per-type KKT routines of
 linalg/hdsdp_sdpdata.c): constraints are bucketed at presolve into
 
@@ -10,7 +10,7 @@ linalg/hdsdp_sdpdata.c): constraints are bucketed at presolve into
 and each IPM iteration computes, per block group (batched over g blocks):
 
   W  = F U F^T                  (U = S^-1)           -> two batched matmuls
-  M += E^T ((lam lam^T) .* W^2) E                    -> MXU + scatter-add
+  M += E^T ((lam lam^T) .* W^2) E                    -> matmul + gather
   B  = U A_d U                  (dense bucket)       -> batched congruence
   M += <A_d, B> and low-rank x dense cross terms
 
@@ -39,7 +39,7 @@ class GroupArrays(NamedTuple):
     * FLAT (``Fs is None``): all low-rank slots of the group are packed
       into F:[g, R, n] with per-slot constraint ids seg:[g, R].  The M
       accumulation goes through either the ``pos`` gather map (g == 1,
-      injective slots) or a one-hot MXU contraction.  The one-hot path
+      injective slots) or a one-hot matmul contraction.  The one-hot path
       costs O(R^2 m) flops and O(g R m) memory — fine for many small
       blocks, catastrophic at SDPLIB scale (R ~ 2m, m ~ 5000).
 
@@ -51,7 +51,7 @@ class GroupArrays(NamedTuple):
           M += sym( (lams_j (x) lams_k) * (Fs_j U Fs_k^T)^2 )
 
       directly in constraint-index order: no scatter, no one-hot, no
-      [g, R, m] blow-up.  This is the TPU replacement for the
+      [g, R, m] blow-up.  This replaces the
       reference's per-row M1/M2 rank-one kernels
       (ref hdsdp_conic_sdp.c:687-778) at large m.
     """
@@ -66,8 +66,8 @@ class GroupArrays(NamedTuple):
     # Optional gather map for the M accumulation: pos[i] = slot r with
     # seg[0, r] == i (sentinel R if none).  Present only when g == 1 and
     # each constraint owns at most one low-rank slot; it turns the m x m
-    # scatter-add — catastrophically slow on TPU (~75ns/element) — into a
-    # pure gather.  When absent, a one-hot MXU contraction is used; the
+    # scatter-add into a pure gather.  When absent, a one-hot matmul
+    # contraction is used; the
     # general scatter is never emitted on the M path.
     pos: Optional[jnp.ndarray] = None  # [m] int32
     # slot-major layout (see class docstring); F/lam/seg hold 1-slot
@@ -78,7 +78,7 @@ class GroupArrays(NamedTuple):
     # and every factor a scaled standard-basis vector, i.e. every
     # low-rank coefficient A_i = w_i e_{p_i} e_{p_i}^T — the maxG*/
     # torus* structure).  Then M_ij = w_i w_j (U_{p_i p_j})^2, a pure
-    # gather + Hadamard square: O(m^2) instead of O(n m^2) — the TPU
+    # gather + Hadamard square: O(m^2) instead of O(n m^2) — the
     # analogue of the reference's rank-one M2 kernel shortcut
     # (ref hdsdp_conic_sdp.c:687-778, kkt2quadform on 1-nnz vectors).
     # A length-0 dpos is the trace-time marker for the IDENTITY map
@@ -92,7 +92,7 @@ class GroupArrays(NamedTuple):
     # coefficients with 2-nnz eigenvectors).  spos/sval hold the padded
     # positions/entries; the pair products Fs_j U Fs_k^T then become c^2
     # gathered m x m Hadamard combinations of U — O(m^2) memory-bound
-    # instead of O(n m^2) matmuls (the TPU analogue of the reference's
+    # instead of O(n m^2) matmuls (the analogue of the reference's
     # sparse rank-one / pairwise M5 kernels,
     # ref linalg/hdsdp_sdpdata.c:1711-1963).
     spos: Optional[jnp.ndarray] = None  # [r, m, c] int32
@@ -113,21 +113,11 @@ class HSDOut(NamedTuple):
     trUCU: jnp.ndarray  # []  tr(S^-1 C S^-1) (caller multiplies by Rd)
 
 
-def group_dual(ga: GroupArrays, dC, scal, y, dEye, hp: bool = False) -> jnp.ndarray:
+def group_dual(ga: GroupArrays, dC, scal, y, dEye) -> jnp.ndarray:
     """Buffer assembly B = dEye*I + scal*(A'y) + dC*C, batched [g,n,n].
 
     Mirrors sdpDenseConeIUpdateBuffer (ref hdsdp_conic_sdp.c:343-402); the
-    per-cone perturbation is folded into dEye by the caller.
-
-    ``hp`` (slot-major groups only) computes the O(r m n^2) contraction
-    W = sum_ja w_ja u_ja u_ja^T as one [n, rm] x [rm, n] bf16-MXU matmul
-    (ops.hpmm, ~2^-45 relative) instead of emulated f64 — the dominant
-    assembly cost once r*m*n^2 reaches ~1e11 flops (theta12/torus-22
-    scale).  The result is symmetrized; the ~3e-14*||W|| error sits 1-2
-    orders below the endgame PSD-check margins (min-eig(S)/||S|| ~ mu),
-    and a misclassified boundary point falls into the existing
-    non-interior recovery ladder, matching the reference's own failure
-    handling."""
+    per-cone perturbation is folded into dEye by the caller."""
     if ga.dpos is not None:
         n = ga.Fs.shape[2]
         g = 1
@@ -158,17 +148,9 @@ def group_dual(ga: GroupArrays, dC, scal, y, dEye, hp: bool = False) -> jnp.ndar
         r, m_, n = ga.Fs.shape
         g = 1
         w = ga.lams * y[None, :]  # [r, m]
-        if hp:
-            from . import hpmm
-
-            wF = (w[:, :, None] * ga.Fs).reshape(r * m_, n)
-            Ff = ga.Fs.reshape(r * m_, n)
-            Wm = hpmm.hpmm(wF.T, Ff)
-            W = (0.5 * (Wm + Wm.T))[None]
-        else:
-            W = jnp.einsum(
-                "jan,ja,jam->nm", ga.Fs, w, ga.Fs, optimize=True
-            )[None]
+        W = jnp.einsum(
+            "jan,ja,jam->nm", ga.Fs, w, ga.Fs, optimize=True
+        )[None]
     else:
         g, R, n = ga.F.shape
         w = ga.lam * y[ga.seg]  # [g, R]
@@ -194,17 +176,11 @@ def _dense_congruence(ga: GroupArrays, U: jnp.ndarray):
 
 
 def _slot_schur(
-    ga: GroupArrays, U: jnp.ndarray, m: int, with_m: bool, hp: bool = False,
+    ga: GroupArrays, U: jnp.ndarray, m: int, with_m: bool,
     col: Optional[GroupArrays] = None,
 ) -> SchurOut:
     """Slot-major Schur contribution (g == 1): r(r+1)/2 [m,n]x[n,m]
     matmuls indexed directly by constraint — the large-m path.
-
-    ``hp`` routes the two large matmul families (FU = Fs @ U and the
-    pair products Fs_j U Fs_k^T) through the Ozaki-sliced bf16 MXU
-    matmul (ops.hpmm, ~2^-45 relative) instead of emulated f64
-    (~0.5 Tflop/s on TPU vs ~100 Tflop/s bf16).  Everything else —
-    Hadamard squares, scalings, the small dense bucket — stays f64.
 
     ``col``: replicated view of the group used for COLUMN-side operands
     of M on a row-sharded mesh (see _diag_schur)."""
@@ -214,12 +190,7 @@ def _slot_schur(
     U0 = U[0]
     md = ga.Ad.shape[0]
 
-    if hp:
-        from . import hpmm
-
-        FU = hpmm.hpmm(ga.Fs.reshape(r * m_, n), U0).reshape(r, m_, n)
-    else:
-        FU = jnp.einsum("jan,nm->jam", ga.Fs, U0, optimize=True)  # [r,m,n]
+    FU = jnp.einsum("jan,nm->jam", ga.Fs, U0, optimize=True)  # [r,m,n]
     asinv = jnp.sum(ga.lams * jnp.sum(FU * ga.Fs, axis=-1), axis=0)
     trsas = jnp.sum(ga.lams * jnp.sum(FU * FU, axis=-1), axis=0)
     trU = jnp.trace(U0)
@@ -232,34 +203,17 @@ def _slot_schur(
         trsas = trsas.at[ga.didx].add(jnp.trace(B, axis1=-2, axis2=-1))
 
     if with_m:
-        from . import hpmm
-
         M = jnp.zeros((m, m), U.dtype)
         for j in range(r):
             for k in range(j, r):
-                T = (
-                    hpmm.hpmm(FU[j], col.Fs[k].T)
-                    if hp
-                    else FU[j] @ col.Fs[k].T
-                )  # [m, m]
+                T = FU[j] @ col.Fs[k].T  # [m, m]
                 T = (ga.lams[j][:, None] * col.lams[k][None, :]) * (T * T)
                 if k == j:
                     M = M + T
                 elif col is not ga:
                     # row-sharded mesh: avoid the transpose reshard by
-                    # recomputing the (k, j) partner row-major.  With
-                    # hp=True the two matmuls round independently
-                    # (bf16/Ozaki), so the assembled M is symmetric only
-                    # to ~2^-45 relative; a Cholesky reads one triangle,
-                    # the sharded-CG path applies the full, negligibly
-                    # nonsymmetric M.  Accepted: the exact symmetrization
-                    # 0.5*(M + M^T) is precisely the transpose-reshard
-                    # this branch exists to avoid.
-                    Tt = (
-                        hpmm.hpmm(FU[k], col.Fs[j].T)
-                        if hp
-                        else FU[k] @ col.Fs[j].T
-                    )
+                    # recomputing the (k, j) partner row-major
+                    Tt = FU[k] @ col.Fs[j].T
                     M = M + T + (
                         ga.lams[k][:, None] * col.lams[j][None, :]
                     ) * (Tt * Tt)
@@ -424,13 +378,9 @@ def _support_schur(ga: GroupArrays, U: jnp.ndarray, m: int, with_m: bool,
 
 def group_schur(
     ga: GroupArrays, U: jnp.ndarray, m: int, with_m: bool = True,
-    hp: bool = False, col: Optional[GroupArrays] = None,
+    col: Optional[GroupArrays] = None,
 ) -> SchurOut:
     """Schur contribution of one group given U = S^-1 [g,n,n].
-
-    ``hp`` (slot-major groups only) runs the large matmuls on the bf16
-    MXU via ops.hpmm — see _slot_schur.  Diagonal rank-1 groups take
-    the O(m^2) gather path regardless of ``hp``.
 
     ``col``: replicated view of the same group for COLUMN-side operands
     of M (row-sharded mesh assembly; see _diag_schur)."""
@@ -440,7 +390,7 @@ def group_schur(
     if ga.spos is not None:
         return _support_schur(ga, U, m, with_m, col=col)
     if ga.Fs is not None:
-        return _slot_schur(ga, U, m, with_m, hp=hp, col=col)
+        return _slot_schur(ga, U, m, with_m, col=col)
 
     g, R, n = ga.F.shape
     md = ga.Ad.shape[0]
@@ -491,8 +441,7 @@ def group_schur(
 def accumulate_m(ga: GroupArrays, Q: jnp.ndarray, m: int) -> jnp.ndarray:
     """Accumulate the low-rank pairwise contributions Q [g, R, R] into the
     m x m Schur matrix WITHOUT a scatter: a gather through ga.pos when the
-    slot map is injective (single block group), else a one-hot einsum that
-    runs on the MXU."""
+    slot map is injective (single block group), else a one-hot einsum."""
     if ga.pos is not None:
         Qp = jnp.pad(Q[0], ((0, 1), (0, 1)))
         return Qp[ga.pos][:, ga.pos]
@@ -559,12 +508,12 @@ def group_atx(ga: GroupArrays, X: jnp.ndarray, m: int) -> jnp.ndarray:
 
 
 # ----------------------------------------------------------------------
-# Matrix-free Schur operator (the TPU-native analogue of the reference's
+# Matrix-free Schur operator (the analogue of the reference's
 # sparse m x m Schur storage, ref interface/hdsdp_schur.c:46-139 symbolic
 # aggregation + the dense-vs-sparse decision at hdsdp_schur.c:60,227).
 #
 # Where the reference switches to a sparse CSC Schur matrix when the
-# aggregated pattern has < 0.3 m^2 nonzeros, the TPU rebuild never
+# aggregated pattern has < 0.3 m^2 nonzeros, this solver never
 # materializes M at all above the dense-feasibility scale: CG solves use
 #
 #     M v = A( S^-1 (sum_j v_j A_j) S^-1 )
@@ -640,9 +589,8 @@ def group_schur_rows(
     """Rows [i0, i0+chunk) of this group's Schur contribution, [chunk, m].
 
     The row-chunked build behind the operator-mode Cholesky
-    preconditioner: each chunk is a SMALL program (compiles through the
-    remote pipeline where the monolithic m x m build cannot — observed
-    tier-3 failure at m = 25001, round 4) and the full M exists only as
+    preconditioner: each chunk is a SMALL program (the monolithic m x m
+    build failed to compile at m = 25001) and the full M exists only as
     an f32 preconditioner assembled chunk by chunk.  ``i0`` may be a
     traced scalar: one compilation covers every chunk.
 

@@ -1,7 +1,7 @@
 """Multi-chip distribution layer.
 
 The reference is a single-process CPU solver (SURVEY.md section 2:
-no MPI/NCCL anywhere); this layer is the genuinely new TPU-native part.
+no MPI/NCCL anywhere); this layer is the genuinely new part.
 The scalable dimensions of the workload are
 
   * m      constraint rows  -> rows of the Schur complement M

@@ -9,8 +9,8 @@ coefficient-slot axes (low-rank rows R, dense slots md) are partitioned
 over the mesh axis ``"row"``: each device contracts its slice of
 constraint slots against the full (replicated, iteration-invariant)
 coefficient arrays and scatter-adds into a local m x m partial of M, and
-one ``psum`` per output combines the partials over ICI.  This is the
-TPU-native replacement for the reference's per-row M1-M5 strategy loop
+one ``psum`` per output combines the partials across devices.  This
+replaces the reference's per-row M1-M5 strategy loop
 (ref interface/hdsdp_conic_sdp.c:1770-1804), which is inherently serial.
 
 Per-device Cholesky of the (small) cone blocks is replicated; the m x m
@@ -118,8 +118,7 @@ def _group_schur_part(ga: GroupArrays, U, m: int, idx, ndev: int, with_m: bool):
         # local rows x all columns of the low-rank Gram: covers every
         # ordered pair exactly once after psum (its transpose partner is
         # produced by the device owning the other row).  Accumulation is
-        # a one-hot MXU contraction: the equivalent scatter-add is
-        # ~75ns/element on TPU and would dominate the whole assembly.
+        # a one-hot matmul contraction instead of a scatter-add.
         W = jnp.einsum("grn,gsn->grs", FU, ga.F, optimize=True)  # [g,Rloc,R]
         Q = (lam[:, :, None] * ga.lam[:, None, :]) * (W * W)
         El = jax.nn.one_hot(seg, m, dtype=U.dtype)  # [g,Rloc,m]

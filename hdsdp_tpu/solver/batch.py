@@ -2,13 +2,12 @@
 
 No reference counterpart — the reference (like every CPU SDP solver) is
 single-instance.  On an accelerator, small-m instances are pure latency
-(mcp100: ~2.2 s on TPU vs 0.12 s reference CPU, ~34 dispatch-bound
-iterations); a fleet of same-shape instances (parameter sweeps, maxcut
+(~34 dispatch-bound iterations); a fleet of same-shape instances (parameter sweeps, maxcut
 over graph ensembles, SDP relaxation batches) can instead ride ONE set
 of fused phase dispatches via ``jax.vmap``:
 
   * every cone kernel (batched Cholesky, Schur einsums, Lanczos) gains a
-    leading instance axis and keeps saturating the MXU;
+    leading instance axis and keeps the device busy;
   * the phase ``lax.while_loop`` batches by running until the LAST
     instance converges while finished instances freeze (jax's while-loop
     batching selects per-element between old and new state), so each
@@ -91,10 +90,6 @@ def solve_batch(
     fused._RATIO_CFG["mode"] = p0.ratio_test
     fused._RATIO_CFG["krylov"] = p0.lanczos_dim
     fused._RATIO_CFG["kwarm"] = p0.lanczos_warm_dim
-    fused._KKT_CFG["mp"] = fused._use_mp(ipms[0])
-    fused._KKT_CFG["hp"] = bool(getattr(ipms[0].cones, "kkt_hp", False))
-    fused._KKT_CFG["dhp"] = bool(getattr(ipms[0].cones, "dual_hp", False))
-    fused._CONE_CFG["dd"] = bool(getattr(ipms[0].cones, "cone_dd", False))
 
     # ---- Phase A prologue per instance (mirrors solve_fused)
     live = []
@@ -123,7 +118,7 @@ def solve_batch(
 
     def batched_a():
         key = ("a", shapes[0], ipms[0].m, p0.corrector_a, p0.max_iter,
-               allow_reset, fused._KKT_CFG["mp"])
+               allow_reset)
         if key not in _BATCH_CACHE:
             run = fused.make_phase_a(
                 p0.corrector_a, p0.max_iter, allow_reset, raw=True
@@ -132,8 +127,7 @@ def solve_batch(
         return _BATCH_CACHE[key]
 
     def batched_b():
-        key = ("b", shapes[0], ipms[0].m, p0.corrector_b, p0.max_iter,
-               fused._KKT_CFG["mp"])
+        key = ("b", shapes[0], ipms[0].m, p0.corrector_b, p0.max_iter)
         if key not in _BATCH_CACHE:
             run = fused.make_phase_b(
                 p0.corrector_b, p0.max_iter, psdp_eligible=False, raw=True

@@ -1,6 +1,6 @@
 """Standalone LP interior-point solver (hybrid primal-dual / primal).
 
-TPU-native re-derivation of the reference's specialized LP module
+Batched re-derivation of the reference's specialized LP module
 (ref interface/hdsdp_lpsolve.c + hdsdp_lpkkt.c):
 
   * Ruiz / geometric / L2 data scaling      (ref HLpSolverIScaleData, :280-311)
@@ -17,8 +17,8 @@ TPU-native re-derivation of the reference's specialized LP module
   * primal convergence statistics driving the switch-over
     (ref HPrimalStatsUpdate :75-130, HLpSolverICheckPrimalStats :491-531)
 
-TPU design: A is a dense [nrow, ncol] array; each IPM iteration is ONE
-jitted dispatch that forms M = A D^2 A' (MXU contraction), factors it with
+Design: A is a dense [nrow, ncol] array; each IPM iteration is ONE
+jitted dispatch that forms M = A D^2 A' (one matmul), factors it with
 a dense Cholesky and performs both predictor and corrector solves.  The
 outer loop runs on host (<=100 iterations).
 """

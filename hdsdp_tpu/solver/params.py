@@ -8,6 +8,7 @@ HDSDPIAdjustConeParams (ref hdsdp.c:136-278).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from hdsdp_tpu.models.problem import Features
 
@@ -52,26 +53,18 @@ class Params:
     # result lands in DualIPM.region (ref HDSDP_CODE_PROFILER analogue)
     profile: bool = False
     # Fusion mode for the IPM phases (hdsdp_tpu.solver.fused):
-    #   "phase" — each phase is ONE in-graph while-loop dispatch (best
-    #             for small shapes; XLA's while-loop compile time is
-    #             pathological at large ones),
-    #   "iter"  — the jitted iteration body is dispatched per iteration
-    #             (large shapes; ~4-14x faster than the op-by-op loop),
-    #   False   — host-driven reference loop (debugging),
+    #   "phase" — each phase is ONE in-graph while-loop dispatch (small
+    #             shapes; the while-loop wrapper's compile time grows
+    #             steeply with the shapes),
+    #   "iter"  — the jitted iteration body is dispatched per iteration,
+    #   False   — host-driven reference loop,
     #   "auto"  — "phase" iff m <= fused_max_m and max block dim <=
     #             fused_max_n; "iter" while the estimated resident state
-    #             fits fused_hbm_budget bytes; host loop above that
-    #             (round-3 measured: iter-fused phase B exceeds HBM at
-    #             m = n = 10648, while the host loop completes).
+    #             fits the device; host loop above that
+    #             (solver.memory.plan).
     fused: object = "auto"
     fused_max_m: int = 512
     fused_max_n: int = 256
-    # HBM ceiling for the "auto" -> "iter" choice.  The iter program's
-    # resident set is ~16 f64 copies of the m x m Schur system plus the
-    # [sum_b n_b, n_max]-class cone buffers (double-buffered while-loop
-    # state + XLA temps); 12 GB leaves headroom on a 16 GB device.
-    # Estimate: 8 * 16 * (m^2 + n_max * sum_b n_b) bytes.
-    fused_hbm_budget: float = 12e9
     # Schur system backend: "direct" dense Cholesky, "cg" Jacobi/stale-
     # Cholesky PCG (ref HDSDP_LINSYS_DENSE_ITERATIVE default), "auto"
     # picks cg above kkt_cg_threshold rows (host loop only; the fused
@@ -82,64 +75,25 @@ class Params:
     # ref hdsdp_schur.c:60,227): "free" never materializes the m x m M —
     # CG solves apply M v = A(S^-1 (sum_j v_j A_j) S^-1) per bucket with
     # an exact Jacobi diagonal as preconditioner, O(m + n^2) memory.
-    # "auto" engages above kkt_free_threshold rows (where dense M would
-    # crowd a 16 GB device); "dense" forces materialization.  Host loop
-    # only; PSDP is skipped in operator mode (its KKT is dense-only).
+    # "auto" engages where a dense M would crowd the device
+    # (solver.memory.kkt_free); "dense" forces materialization.  Host
+    # loop only; PSDP is skipped in operator mode (its KKT is dense-only).
     kkt_mode: str = "auto"
-    kkt_free_threshold: int = 20000
+    # CG iterations per dispatch in operator mode
     kkt_free_maxiter: int = 600
-    # Operator-mode stall escalation (≙ the reference's CG -> dense-LDL
-    # switch, hdsdp_linsolver.c:1827-1857): when Jacobi-PCG stalls twice
-    # (base + 4x budget), materialize M once via the dense build and
-    # direct-factor it — allowed only up to this row count (a dense f64
-    # M plus factor workspace must fit beside the cone buffers).
-    op_materialize_cap: int = 32768
-    # Operator-mode Cholesky preconditioner (round 5, the matrix-free
-    # path's factorization-grade endgame ≙ QDLDL's role for the sparse
-    # Schur system, hdsdp_linsolver.c:510-810, + the ADPCG stale-factor
-    # policy): M is materialized ROW-CHUNK by row-chunk directly into an
-    # equilibrated f32 buffer (each chunk a small program — compiles at
-    # m = 25001 where the monolithic build cannot), factored + inverted
-    # in f32, and kept (possibly stale) as the CG preconditioner.
-    # Peak extra memory ~3 * 4 m^2 bytes transient, 4 m^2 resident.
-    # op_precond_cap = 0 disables (pure Jacobi as in round 4).
-    op_precond_cap: int = 32768
+    # Largest m for which operator mode's stall escalation (≙ the
+    # reference's CG -> dense-LDL switch, hdsdp_linsolver.c:1827-1857)
+    # materializes M once for a direct factor.  None derives it from the
+    # device memory (solver.memory.dense_m_cap); 0 turns it off.
+    op_materialize_cap: Optional[int] = None
+    # Operator mode's Cholesky preconditioner (≙ QDLDL's role for the
+    # sparse Schur system, hdsdp_linsolver.c:510-810, + the ADPCG
+    # stale-factor policy) builds an equilibrated f32 copy of M in row
+    # chunks of this many rows, up to m = solver.memory.dense_m_cap()
     op_precond_chunk: int = 2048
     # refresh the stale factor when a converged solve needed this many
     # CG iterations (the ADPCG iteration-regret rule)
     op_precond_refresh_iters: int = 80
-    # Arithmetic for the direct Schur factorization: "xla" — XLA's
-    # emulated-f64 Cholesky (VPU, ~0.02 Tflop/s); "dd" — double-single
-    # blocked Cholesky on the MXU (ops.ddchol, ~2^-45 accuracy, matches
-    # the reference's dpotrf semantics at f64 parity); "auto" picks dd
-    # on real TPU when m >= kkt_dd_threshold (below that the f64
-    # latency floor wins).
-    kkt_fp: str = "auto"
-    kkt_dd_threshold: int = 768
-    # Arithmetic for the cone-side S factorization / interior checks:
-    # "dd" routes single-block groups through the double-single MXU
-    # Cholesky (ops.ddchol) with the factor converted back to f64;
-    # "auto" engages on real TPU for single-block problems whose block
-    # dim >= cone_dd_threshold; "off" keeps XLA's emulated-f64 path.
-    cone_fp: str = "auto"
-    # measured on TPU v5e: maxG51 (n=1000) warm 5.83 s with dd vs
-    # 12.1 s without (same 36 iterates, objective to 1e-9) — the n^3
-    # S-side factor/inverse dominates well below the old 1024 gate
-    cone_dd_threshold: int = 768
-    # Mixed-precision Schur solves inside the FUSED bodies: factor in
-    # native f32 (Jacobi-equilibrated), solve by f64 iterative
-    # refinement, probe-gated in-graph f64-ladder fallback (ref default
-    # iterative backend, hdsdp_schur.c:19).  "auto" engages on real TPU
-    # at m >= kkt_mp_threshold; "on"/"off" force.
-    kkt_mp: str = "auto"
-    kkt_mp_threshold: int = 768
-    # High-precision MXU Schur ASSEMBLY (slot-major groups): route the
-    # FU = Fs@U and pairwise Fs_j U Fs_k^T matmuls through the
-    # Ozaki-sliced bf16 MXU kernel (ops.hpmm, ~2^-45 relative) instead
-    # of emulated f64.  "auto" engages on real TPU at m >=
-    # kkt_hp_threshold; "on"/"off" force.
-    kkt_hp: str = "auto"
-    kkt_hp_threshold: int = 2048
 
 
 def adjust_params(params: Params, f: Features) -> Params:

@@ -12,7 +12,7 @@ then steps  y += a_d*dy,  X += a_p*(X - XSX/mu - Xs dS Xs / mu)
 dual cone (S + a*dS >= 0) and the primal factor (X + a*dX >= 0).
 On any failure the dual iterate is restored (ref HPSDPIRecover, :31-47).
 
-TPU notes: X / XSX / dX are batched per block group; the X-weighted Schur
+Layout: X / XSX / dX are batched per block group; the X-weighted Schur
 build reuses the same bucketed kernels as the dual build (U -> X).
 """
 
@@ -28,13 +28,14 @@ import numpy as np
 from hdsdp_tpu.ops import chol as chol_ops
 from hdsdp_tpu.ops import ratio as ratio_ops
 from hdsdp_tpu.ops import schur as schur_ops
+from hdsdp_tpu.solver import memory
 
 
-def _build_primal_kkt(groups, X_list, m, hp=False):
+def _build_primal_kkt(groups, X_list, m):
     """M_ij = sum tr(A_i X A_j X) (KKT_TYPE_PRIMAL: X replaces S^-1)."""
     M = jnp.zeros((m, m), X_list[0].dtype)
     for ga, X in zip(groups, X_list):
-        out = schur_ops.group_schur(ga, X, m, with_m=True, hp=hp)
+        out = schur_ops.group_schur(ga, X, m, with_m=True)
         M = M + out.M
     return M
 
@@ -130,11 +131,7 @@ class PSDPRefiner:
         # place of S^-1 (M_ij = tr(A_i X A_j X) has the identical
         # operator form).
         use_operator = bool(getattr(ipm, "kkt_free", False)) and (
-            m > p.op_materialize_cap
-            # a dense f64 M plus its DD-factor workspace is ~24 m^2
-            # bytes — above ~22k rows that crowds a 16 GB device, and
-            # the chol-preconditioned PCG is factorization-grade anyway
-            or 24.0 * m * m > 12e9
+            m > ipm.materialize_cap()
             or getattr(ipm, "_op_mat_unavailable", False)
         )
         op_state: dict = {}
@@ -165,8 +162,7 @@ class PSDPRefiner:
                 op_state["pinv"] = 1.0 / jnp.maximum(diag + reg, 1e-300)
                 op_state["pc"] = None
                 if (
-                    p.op_precond_cap > 0
-                    and m <= p.op_precond_cap
+                    m <= memory.dense_m_cap()
                     and ipm.cones.kkt_rows_supported()
                 ):
                     op_state["pc"] = ipm._build_chunked_precond(
@@ -174,17 +170,16 @@ class PSDPRefiner:
                     )
                 return
 
-            # the monolithic with_m build program does not compile at
-            # m = 25001 on this box (r4 tier-3 evidence): assemble the
-            # X-weighted M from row chunks when the layout allows
-            hp = bool(getattr(ipm.cones, 'kkt_hp', False))
+            # the monolithic with_m build program did not compile at
+            # m = 25001: assemble the X-weighted M from row chunks when
+            # the layout allows
             if ipm.cones.kkt_rows_supported() and m >= 8192:
                 zero = jnp.zeros((m,), ipm.dtype)
                 M = ipm.cones.kkt_full_from_rows(
                     tuple(Xscal), None, zero, chunk=p.op_precond_chunk
                 )
             else:
-                M = _build_primal_kkt(groups, Xscal, m, hp=hp)
+                M = _build_primal_kkt(groups, Xscal, m)
             # regularize (ref HKKTRegularize with 1e-16 coefficient)
             reg = 1e-16 * float(jnp.max(jnp.diag(M))) + 1e-300
             ipm.kkt = KKTOut(
@@ -213,9 +208,9 @@ class PSDPRefiner:
             sol = jnp.zeros_like(B)
             R = B
             if op_state.get("pc") is not None:
-                Linv, s = op_state["pc"]
+                L32, s = op_state["pc"]
                 sol, res, _ = ipm.cones.kkt_pcg_chol(
-                    tuple(Xscal), None, op_state["extra"], Linv, s, B,
+                    tuple(Xscal), None, op_state["extra"], L32, s, B,
                     abs_tol=1e-10, rel_tol=1e-10,
                     max_iter=max(p.kkt_free_maxiter, 600),
                 )

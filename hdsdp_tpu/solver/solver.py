@@ -68,7 +68,7 @@ class HDSDPSolver:
             apply_checkpoint(ipm, load_checkpoint(resume_from))
         self.ipm = ipm
         if self.params.verbose:
-            print("\nhdsdp_tpu: TPU-native semidefinite programming solver\n")
+            print("\nhdsdp_tpu: dual-scaling interior-point semidefinite programming solver\n")
             if self.params.model_notes:
                 print(ipm.params.model_notes)
 

@@ -22,13 +22,13 @@ class Logger:
         if not self.enabled:
             return
         if method == "hsd":
-            print("HDSDP-TPU starts. Using self-dual method \n")
+            print("HDSDP starts. Using self-dual method \n")
             cols = ("nIter", "pObj", "dObj", "dInf", "Mu", "Step", "Tau", "T [H]")
         elif method == "infeas":
-            print("HDSDP-TPU starts. Using infeasible dual method \n")
+            print("HDSDP starts. Using infeasible dual method \n")
             cols = ("nIter", "pObj", "dObj", "dInf", "Mu", "Step", "|P|", "T [D]")
         else:
-            print("HDSDP-TPU re-starts. Using feasible dual method \n")
+            print("HDSDP re-starts. Using feasible dual method \n")
             cols = ("nIter", "pObj", "dObj", "pInf", "Mu", "Step", "|P|", "T [P]")
         print(
             "    %5s  %15s  %15s  %8s  %8s  %5s  %6s   %5s "

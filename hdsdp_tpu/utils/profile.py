@@ -1,6 +1,6 @@
 """Tracing / profiling utilities.
 
-TPU equivalent of the reference's macro-based profiling
+Equivalent of the reference's macro-based profiling
 (ref interface/hdsdp_utils.h:55-70 HDSDP_PROFILER /
 HDSDP_CODE_PROFILER_START/END, and the per-backend counters of
 linalg/hdsdp_linsolver.c):

@@ -46,30 +46,6 @@ def test_adaptive_cg_escalates_on_illconditioned():
     assert cg.n_factor == nf
 
 
-def test_adaptive_cg_dd_full_tier(monkeypatch):
-    """The TPU full-precision tier (DD blocked MXU factor + DD-solve
-    refinement, round 5) must deliver the same escalation semantics as
-    the f64 tier it replaces: kappa ~ 1e10 solves to direct-solve
-    accuracy, factor_dd recorded in the ledger, stale reuse intact."""
-    from hdsdp_tpu.ops import cg as cg_mod
-
-    monkeypatch.setattr(cg_mod, "use_dd_full_tier", lambda m: True)
-    m = 80
-    M = _spd(m, seed=3, cond=1e10)
-    rhs = jnp.asarray(np.random.default_rng(4).normal(size=(m, 2)))
-    cg = cg_mod.AdaptiveCG()
-    X, ok = cg.solve_mat_checked(M, rhs)
-    assert ok
-    X_ref = np.linalg.solve(np.asarray(M), np.asarray(rhs))
-    np.testing.assert_allclose(np.asarray(X), X_ref, rtol=1e-5, atol=1e-6)
-    kinds = [k for k, _, _ in cg.history]
-    assert "factor_dd" in kinds, kinds
-    # second solve with a nearby matrix reuses the stale DD factor
-    nf = cg.n_factor
-    X2, ok2 = cg.solve_mat_checked(M + 1e-6 * jnp.eye(m), rhs)
-    assert ok2 and cg.n_factor == nf
-
-
 def test_sharded_pcg_matches_direct():
     mesh = make_mesh(8)
     m = 100  # not a multiple of 8: exercises padding
@@ -128,90 +104,43 @@ def test_solver_cg_escalates_direct():
     assert ipm.Mfac[0] in ("lu", "chol")
 
 
-def test_refine_solve_pre_inverted_matches_triangular():
-    """The inverted-preconditioner apply (blocked panel inversion + two
-    matmuls — the TPU path that avoids the [k, m, m] triangular-solve
-    expander temp) must reach the same f64 accuracy as the triangular
-    apply on the same equilibrated f32 factor."""
+@pytest.mark.parametrize("m,cond,atol", [
+    (600, 1e6, 1e-9),  # late-IPM conditioning
+    (600, 1e4, 1e-10),
+    (512, 1e4, 1e-10),
+])
+def test_refine_solve_f32_factor_matches_direct(m, cond, atol):
+    """AdaptiveCG's f32 tier refines with f64 residuals against the
+    equilibrated f32 Cholesky factor, applied by two triangular solves
+    (solve_triangular) per sweep; it must reach the f64 direct solve."""
     from hdsdp_tpu.ops.cg import _equilibrated_factor, refine_solve
-    from hdsdp_tpu.ops.chol import blocked_tri_inverse
 
-    m, k = 600, 8
-    M = _spd(m, seed=9, cond=1e6)
+    k = 8
+    M = _spd(m, seed=9, cond=cond)
     rng = np.random.default_rng(10)
     B = jnp.asarray(rng.normal(size=(m, k)))
 
     L, s, ok = _equilibrated_factor(M, f32=True)
-    assert bool(ok)
-    X_tri, st_tri, _ = refine_solve(M, L, s, B)
-    Linv = blocked_tri_inverse(L, block=128)
-    X_inv, st_inv, _ = refine_solve(M, Linv, s, B, pre_inverted=True)
-
-    assert int(st_tri) == STATUS_OK and int(st_inv) == STATUS_OK
-    X_ref = np.linalg.solve(np.asarray(M), np.asarray(B))
-    scale = np.max(np.abs(X_ref))
-    np.testing.assert_allclose(np.asarray(X_tri) / scale,
-                               X_ref / scale, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(X_inv) / scale,
-                               X_ref / scale, atol=1e-9)
-
-
-def test_refine_solve_hp_residual_matches_direct():
-    """hp_residual=True evaluates R = B - M X through the Ozaki-sliced
-    MXU matmul (the large-m TPU path that avoids XLA's [8, m, m] f64
-    dot-emulation temp — the torus-22 OOM) and must still converge to a
-    direct-solve-accurate X under its ~2^-45 acceptance floor."""
-    from hdsdp_tpu.ops.cg import STATUS_OK, _equilibrated_factor, refine_solve
-
-    m, k = 384, 5
-    M = _spd(m, seed=12, cond=1e6)
-    rng = np.random.default_rng(13)
-    B = jnp.asarray(rng.normal(size=(m, k)))
-
-    L, s, ok = _equilibrated_factor(M, f32=True)
-    assert bool(ok)
-    X, st, _ = refine_solve(M, L, s, B, hp_residual=True)
+    assert bool(ok) and L.dtype == jnp.float32
+    X, st, _ = refine_solve(M, L, s, B)
     assert int(st) == STATUS_OK
     X_ref = np.linalg.solve(np.asarray(M), np.asarray(B))
     scale = np.max(np.abs(X_ref))
-    # forward-error floor is kappa * 2^-45 ~ 3e-8 at cond=1e6 (the f64
-    # path's floor is kappa * n * eps64 — same order at this size)
     np.testing.assert_allclose(np.asarray(X) / scale, X_ref / scale,
-                               atol=1e-7)
+                               atol=atol)
 
 
-def test_check_time_dd_solve_matches_f64_ladder(monkeypatch):
-    """The check-time DD fast path (dimacs._dd_solve_checked, round 5)
-    must agree with the f64 regularization ladder it short-circuits: the
-    refinement runs against the ORIGINAL f64 M, so the dy it returns is
-    direct-solve exact even though the factor backend is the ~2^-45 DD
-    blocked MXU factor (ref check semantics: hdsdp.c:771-933 computes
-    DIMACS from an exact dy)."""
-    from hdsdp_tpu.ops import cg as cg_mod
-    from hdsdp_tpu.solver import dimacs as dm
-
-    monkeypatch.setattr(cg_mod, "use_dd_full_tier", lambda m: True)
-    m = 96
-    M = _spd(m, seed=21, cond=1e9)
-    rhs = jnp.asarray(np.random.default_rng(22).normal(size=m))
-    dy = dm._dd_solve_checked(M, rhs)
-    assert dy is not None
-    ok, dy_ref = dm._chol_solve_ladder(M, rhs)
-    assert bool(ok)
-    scale = float(jnp.max(jnp.abs(dy_ref)))
-    np.testing.assert_allclose(np.asarray(dy) / scale,
-                               np.asarray(dy_ref) / scale, atol=1e-9)
-
-
-def test_check_time_dd_solve_falls_back_on_indefinite(monkeypatch):
-    """A near-indefinite check-time system must not be silently solved
-    by the DD fast path: the factor fails, _dd_solve_checked returns
-    None, and the caller's f64 regularization ladder takes over."""
-    from hdsdp_tpu.ops import cg as cg_mod
-    from hdsdp_tpu.solver import dimacs as dm
-
-    monkeypatch.setattr(cg_mod, "use_dd_full_tier", lambda m: True)
-    m = 64
-    M = _spd(m, seed=31) - 5.0 * jnp.eye(m)  # indefinite
-    rhs = jnp.asarray(np.random.default_rng(32).normal(size=m))
-    assert dm._dd_solve_checked(M, rhs) is None
+def test_adaptive_cg_tiers_keep_their_factor_form():
+    """Both tiers store the triangular factor L: f32 in the fast tier,
+    f64 in the escalation tier."""
+    m = 80
+    rhs = jnp.asarray(np.random.default_rng(4).normal(size=m))
+    cg = AdaptiveCG()
+    cg.solve(_spd(m, seed=3, cond=1e2), rhs)
+    L, _ = cg.chol_fac
+    assert L.dtype == jnp.float32
+    np.testing.assert_array_equal(np.triu(np.asarray(L), 1), 0.0)
+    cg = AdaptiveCG()
+    cg._factor(_spd(m, seed=3, cond=1e2), f32=False)
+    L, _ = cg.chol_fac
+    assert L.dtype == jnp.float64

@@ -1,15 +1,19 @@
 """Checkpoint/resume, dual warm start, and the CLI driver."""
 
 import json
+import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
+import instances
 from hdsdp_tpu.models.problem import SDPProblem
 from hdsdp_tpu.models.synthetic import random_sdpa
 from hdsdp_tpu.solver.solver import HDSDPSolver
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -48,31 +52,29 @@ def test_checkpoint_mismatch_rejected(tmp_path, prob):
         HDSDPSolver(other, verbose=False).optimize(resume_from=ck)
 
 
-def test_cli_sdpa(examples_dir):
+def _cli(path):
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=1"}
+    for k in ("HOME", "TMPDIR"):
+        if k in os.environ:
+            env[k] = os.environ[k]
     out = subprocess.run(
-        [sys.executable, "-m", "hdsdp_tpu", f"{examples_dir}/theta1.dat-s",
-         "--quiet", "--json"],
-        capture_output=True, text=True, cwd="/root/repo", timeout=560,
-        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=1",
-             "HOME": "/root"},
+        [sys.executable, "-m", "hdsdp_tpu", path, "--quiet", "--json"],
+        capture_output=True, text=True, cwd=REPO, timeout=560, env=env,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    summary = json.loads(out.stdout.strip().splitlines()[-1])
-    assert summary["status"] == "PRIMAL_DUAL_OPTIMAL"
-    assert summary["dObj"] == pytest.approx(-23.0, rel=1e-5)
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def test_cli_mps(examples_dir):
-    out = subprocess.run(
-        [sys.executable, "-m", "hdsdp_tpu", f"{examples_dir}/afiro.mps",
-         "--quiet", "--json"],
-        capture_output=True, text=True, cwd="/root/repo", timeout=560,
-        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=1",
-             "HOME": "/root"},
-    )
-    assert out.returncode == 0, out.stderr[-2000:]
-    summary = json.loads(out.stdout.strip().splitlines()[-1])
+def test_cli_sdpa():
+    summary = _cli(instances.path("theta_petersen.dat-s"))
     assert summary["status"] == "PRIMAL_DUAL_OPTIMAL"
-    assert summary["pObj"] == pytest.approx(-464.753, rel=1e-4)
+    assert summary["dObj"] == pytest.approx(-4.0, rel=1e-6)
+
+
+def test_cli_mps():
+    summary = _cli(instances.path("lp_small.mps"))
+    assert summary["status"] == "PRIMAL_DUAL_OPTIMAL"
+    assert summary["pObj"] == pytest.approx(
+        instances.lp_golden("lp_small.mps"), rel=1e-6)

@@ -1,10 +1,11 @@
-"""SDPA reader + problem IR tests against the bundled reference fixtures."""
+"""SDPA reader + problem IR tests on the in-repo instances (tests/data)."""
 
 import io
 
 import numpy as np
 import pytest
 
+import instances
 from hdsdp_tpu.io.sdpa import read_sdpa
 from hdsdp_tpu.models.problem import SDPProblem
 
@@ -36,36 +37,64 @@ def test_read_small_with_lp():
     assert obj[(1, 0)] == -1.0
 
 
-def test_read_mcp100(examples_dir):
-    data = read_sdpa(f"{examples_dir}/mcp100.dat-s")
+def test_read_maxcut100():
+    data = read_sdpa(instances.path("maxcut100.dat-s"))
     assert data.m == 100
     assert data.block_dims == [100]
     assert data.lp is None
-    # mcp100: b = 1 vector? (b_i are all 1 for maxcut relaxations)
+    # maxcut relaxations: diag(X) = b with every b_i nonzero
     assert np.all(data.b != 0)
 
 
-def test_read_truss1(examples_dir):
-    data = read_sdpa(f"{examples_dir}/truss1.dat-s")
-    assert data.m == 6
-    assert len(data.block_dims) > 1
+def test_read_control10():
+    data = read_sdpa(instances.path("control10.dat-s"))
+    assert data.m == 55
+    assert data.block_dims == [10, 10]
 
 
-def test_read_theta1_gpp100(examples_dir):
-    t = read_sdpa(f"{examples_dir}/theta1.dat-s")
+def test_read_theta50_gpp100():
+    t = read_sdpa(instances.path("theta50.dat-s"))
     assert t.m == 104 and t.block_dims == [50]
-    g = read_sdpa(f"{examples_dir}/gpp100.dat-s")
+    g = read_sdpa(instances.path("gpp100.dat-s"))
     assert g.m == 101 and g.block_dims == [100]
 
 
-def test_problem_build_mcp100(examples_dir):
-    data = read_sdpa(f"{examples_dir}/mcp100.dat-s")
+@pytest.mark.parametrize("fname", sorted(instances.SDPA))
+def test_data_file_round_trip(fname):
+    """Each committed instance is exactly what its seeded generator
+    writes, and reading it back restores the generator's structure."""
+    with open(instances.path(fname)) as fh:
+        assert fh.read() == instances.sdpa_text(fname)
+    gen = instances.SDPA[fname]()
+    with open(instances.path(fname)) as fh:  # the Python reader
+        data = read_sdpa(fh)
+    assert data.m == gen.m
+    assert data.block_dims == gen.block_dims
+    np.testing.assert_array_equal(data.b, gen.b)
+    assert len(data.blocks) == len(gen.blocks)
+    for got, want in zip(data.blocks, gen.blocks):
+        nz = np.abs(want.val) >= 1e-12  # the reader drops zero entries
+        kg = np.lexsort((got.col, got.row, got.con))
+        kw = np.lexsort((want.col[nz], want.row[nz], want.con[nz]))
+        np.testing.assert_array_equal(got.con[kg], want.con[nz][kw])
+        np.testing.assert_array_equal(got.row[kg], want.row[nz][kw])
+        np.testing.assert_array_equal(got.val[kg], want.val[nz][kw])
+
+
+@pytest.mark.parametrize("fname", sorted(instances.LP))
+def test_lp_data_file_round_trip(fname):
+    with open(instances.path(fname)) as fh:
+        assert fh.read() == instances.mps_text(fname)
+
+
+def test_problem_build_maxcut100():
+    data = read_sdpa(instances.path("maxcut100.dat-s"))
     prob = SDPProblem.from_sdpa(data)
     assert prob.m == 100
     assert len(prob.groups) == 1
     grp = prob.groups[0]
     assert grp.dim == 100 and grp.nblk == 1
-    # all mcp100 constraints are e_i e_i^T: rank-1 bucket, no dense bucket
+    # all maxcut constraints are e_i e_i^T: rank-1 bucket, no dense bucket
     assert grp.md == 0
     assert grp.R == 100
     # implied trace structure should be detected (diag(X) = b)
@@ -81,11 +110,11 @@ def test_problem_build_mcp100(examples_dir):
     np.testing.assert_allclose(W, A_full, atol=1e-12)
 
 
-def test_problem_build_theta1(examples_dir):
-    data = read_sdpa(f"{examples_dir}/theta1.dat-s")
+def test_problem_build_theta50():
+    data = read_sdpa(instances.path("theta50.dat-s"))
     prob = SDPProblem.from_sdpa(data)
     grp = prob.groups[0]
-    # theta1 constraint 1 is the identity (trace constraint)
+    # theta constraint 1 is the identity (trace constraint)
     assert prob.features.implied_trace
     # check bucket reconstruction of a few constraints against raw data
     blk = data.blocks[0]

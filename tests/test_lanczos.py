@@ -86,3 +86,23 @@ def test_cone_system_carries_warm_start():
     assert cones._lz_warm[0] is not None
     step2 = float(cones.ratio_test(L, s_lp, dS, None))
     assert step2 == pytest.approx(step1, rel=1e-2)
+
+
+def test_built_block_filler_stays_on_scale():
+    """The adaptive Lanczos eigendecomposes its partly built Krylov
+    matrix with the unbuilt rows replaced by a filler: the top eigenpairs
+    must be the built block's, and the filler must stay on its scale
+    (a norm-relative Jacobi eigh, as GPUs use for small matrices, does
+    not converge on the built block next to a huge filler)."""
+    from hdsdp_tpu.ops.ratio import _built_block
+
+    k, i = 12, 4
+    rng = np.random.default_rng(8)
+    a = rng.normal(size=k + 1) * 1e3
+    b = np.abs(rng.normal(size=k))
+    T = np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+    B = np.asarray(_built_block(jnp.asarray(T), i, k))
+    blk = T[: i + 1, : i + 1]
+    np.testing.assert_allclose(np.linalg.eigvalsh(B)[-2:],
+                               np.linalg.eigvalsh(blk)[-2:], rtol=1e-12)
+    assert np.abs(B).max() <= 2.0 * (np.abs(blk).sum(axis=1).max() + 1.0)

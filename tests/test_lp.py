@@ -1,23 +1,17 @@
-"""Standalone LP IPM: golden objectives on the bundled MPS fixtures
-(netlib optima; ref tests/test_file_io.c:89-183 is the equivalent driver)
-plus a synthetic random LP sanity check."""
-
-import os
+"""Standalone LP IPM: golden objectives on the in-repo MPS instances
+(HiGHS optima via scipy; ref tests/test_file_io.c:89-183 is the
+equivalent driver) plus synthetic random LP sanity checks."""
 
 import numpy as np
 import pytest
 
+import instances
 from hdsdp_tpu.solver.lpsolve import LPParams, LPSolver, solve_mps_file
 
-GOLDEN = {
-    "afiro.mps": -464.75314286,
-    "blend.mps": -30.812149846,
-}
-
-
-@pytest.mark.parametrize("fname,obj", sorted(GOLDEN.items()))
-def test_lp_golden(examples_dir, fname, obj):
-    r = solve_mps_file(f"{examples_dir}/{fname}", verbose=False)
+@pytest.mark.parametrize("fname", ["lp_small.mps", "lp_medium.mps"])
+def test_lp_golden(fname):
+    obj = instances.lp_golden(fname)
+    r = solve_mps_file(instances.path(fname), verbose=False)
     assert r.status == "PRIMAL_DUAL_OPTIMAL"
     assert r.p_obj == pytest.approx(obj, rel=1e-6)
     assert r.d_obj == pytest.approx(obj, rel=1e-6)
@@ -52,27 +46,31 @@ def test_lp_scalings(scal):
     assert r.status == "PRIMAL_DUAL_OPTIMAL"
 
 
-def test_lp_golden_10teams(examples_dir):
-    """Larger golden fixture (nrow=1800): measured factor:solve switch-over
-    machinery runs, optimum matches netlib (ref tests/test_file_io.c:89-183)."""
-    r = solve_mps_file(f"{examples_dir}/10teams.mps", verbose=False)
+def test_lp_golden_large():
+    """Larger sparse instance (240 rows, 500 columns): the factor:solve
+    switch-over machinery runs, optimum matches HiGHS."""
+    obj = instances.lp_golden("lp_large.mps")
+    r = solve_mps_file(instances.path("lp_large.mps"), verbose=False)
     assert r.status == "PRIMAL_DUAL_OPTIMAL"
-    assert r.p_obj == pytest.approx(897.0, rel=1e-5)
-    assert r.d_obj == pytest.approx(897.0, rel=1e-5)
+    assert r.p_obj == pytest.approx(obj, rel=1e-5)
+    assert r.d_obj == pytest.approx(obj, rel=1e-5)
 
 
-@pytest.mark.skipif(
-    not os.environ.get("HDSDP_SLOW"),
-    reason="acc-tight4 (nrow=4905) needs ~3 min of CPU Cholesky; "
-    "set HDSDP_SLOW=1 (verified: OPTIMAL, obj 1.4e-13)",
-)
-def test_lp_golden_acc_tight4(examples_dir):
-    """Degenerate fixture with redundant equality rows: exercises the
-    persistent regularization-ladder rung (ref qdldl static regularization)."""
-    r = solve_mps_file(f"{examples_dir}/acc-tight4.mps", verbose=False)
+def test_lp_golden_redundant_rows(tmp_path):
+    """Degenerate instance with repeated equality rows (rank-deficient A):
+    exercises the persistent regularization-ladder rung (ref qdldl static
+    regularization)."""
+    c, A, senses, rhs, ub = instances.random_lp(*instances.LP["lp_small.mps"])
+    eq = np.nonzero(senses == "E")[0]
+    lp = (c, np.vstack([A, A[eq]]), np.concatenate([senses, senses[eq]]),
+          np.concatenate([rhs, rhs[eq]]), ub)
+    path = tmp_path / "redundant.mps"
+    path.write_text(instances.format_mps("REDUNDANT", *lp))
+    obj = instances.linprog_optimum(*lp)
+    r = solve_mps_file(str(path), verbose=False)
     assert r.status == "PRIMAL_DUAL_OPTIMAL"
-    assert abs(r.p_obj) < 1e-5
-    assert abs(r.d_obj) < 1e-5
+    assert r.p_obj == pytest.approx(obj, rel=1e-6)
+    assert r.d_obj == pytest.approx(obj, rel=1e-6)
 
 
 def test_lp_primal_phase_runs():

@@ -3,15 +3,13 @@
 import numpy as np
 import pytest
 
+import instances
 from hdsdp_tpu.io import sdpa as pysdpa
 from hdsdp_tpu.native import sdpa_native
 
-FILES = ["mcp100.dat-s", "theta1.dat-s", "gpp100.dat-s", "truss1.dat-s"]
-
-
-@pytest.mark.parametrize("fname", FILES)
-def test_native_matches_python(examples_dir, fname):
-    path = f"{examples_dir}/{fname}"
+@pytest.mark.parametrize("fname", sorted(instances.SDPA))
+def test_native_matches_python(fname):
+    path = instances.path(fname)
     dn = sdpa_native.read(path)
     if dn is None:
         pytest.skip("native tokenizer unavailable (no g++?)")

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import instances
 from hdsdp_tpu.io.sdpa import read_sdpa
 from hdsdp_tpu.models.problem import SDPProblem
 from hdsdp_tpu.models.synthetic import maxcut_sdpa, qpg_sdpa, theta_sdpa
@@ -16,9 +17,9 @@ from hdsdp_tpu.solver.cones import ConeSystem
 from hdsdp_tpu.solver.solver import HDSDPSolver
 
 
-def _prob(examples_dir, name):
+def _prob(name):
     if name.endswith(".dat-s"):
-        return SDPProblem.from_sdpa(read_sdpa(f"{examples_dir}/{name}"))
+        return SDPProblem.from_sdpa(read_sdpa(instances.path(name)))
     gen = {
         "maxcut120": lambda: maxcut_sdpa(n=120),
         "theta60": lambda: theta_sdpa(n=60, n_edges=400),
@@ -29,10 +30,10 @@ def _prob(examples_dir, name):
 
 @pytest.mark.parametrize(
     "name",
-    ["theta1.dat-s", "truss1.dat-s", "maxcut120", "theta60", "qpg60"],
+    ["theta50.dat-s", "control10.dat-s", "maxcut120", "theta60", "qpg60"],
 )
-def test_operator_matches_dense(examples_dir, name):
-    prob = _prob(examples_dir, name)
+def test_operator_matches_dense(name):
+    prob = _prob(name)
     cs = ConeSystem(prob)
     m = prob.m
 
@@ -86,11 +87,11 @@ def test_operator_matches_dense(examples_dir, name):
 
 
 @pytest.mark.parametrize("name", ["maxcut120", "theta60"])
-def test_kkt_rows_chunks_match_dense(examples_dir, name):
+def test_kkt_rows_chunks_match_dense(name):
     """The row-chunked KKT build (the f32-preconditioner materializer,
     round 5) must reproduce the dense M row-for-row, including the
     diagonal bound/reg terms, for every chunkable bucket."""
-    prob = _prob(examples_dir, name)
+    prob = _prob(name)
     cs = ConeSystem(prob)
     assert cs.kkt_rows_supported()
     m = prob.m
@@ -120,11 +121,11 @@ def test_kkt_rows_chunks_match_dense(examples_dir, name):
     np.testing.assert_allclose(got, M, atol=1e-9 * scale)
 
 
-def test_kkt_full_from_rows_matches_dense(examples_dir):
+def test_kkt_full_from_rows_matches_dense():
     """The chunk-assembled full KKT matrix (PSDP's factor-once path at
     sizes where the monolithic with_m build cannot compile) must equal
     the dense build elementwise."""
-    prob = _prob(examples_dir, "theta60")
+    prob = _prob("theta60")
     cs = ConeSystem(prob)
     m = prob.m
     rng = np.random.default_rng(9)
@@ -145,7 +146,7 @@ def test_operator_chol_precond_engages_and_solves():
     """The operator-mode f32 Cholesky preconditioner (round 5, VERDICT
     #4) must build via the chunked materializer, drive the CG, and reach
     the dense path's optimum even with a starved Jacobi budget."""
-    prob = _prob(None, "theta60")
+    prob = _prob("theta60")
     ref = HDSDPSolver(prob).optimize()
     s = HDSDPSolver(
         prob, kkt_mode="free", kkt_free_maxiter=40, op_precond_chunk=64,
@@ -159,8 +160,8 @@ def test_operator_chol_precond_engages_and_solves():
     )
 
 
-def test_operator_mode_end_to_end(examples_dir):
-    prob = _prob(examples_dir, "theta60")
+def test_operator_mode_end_to_end():
+    prob = _prob("theta60")
     ref = HDSDPSolver(prob).optimize()
     assert ref.status == "PRIMAL_DUAL_OPTIMAL"
 
@@ -170,7 +171,7 @@ def test_operator_mode_end_to_end(examples_dir):
 
 
 def test_operator_mode_lp_mix_end_to_end():
-    prob = _prob(None, "qpg60")
+    prob = _prob("qpg60")
     ref = HDSDPSolver(prob).optimize()
     r = HDSDPSolver(prob, kkt_mode="free").optimize()
     assert r.status == ref.status == "PRIMAL_DUAL_OPTIMAL"
@@ -181,7 +182,7 @@ def test_operator_cg_stall_escalation():
     """A starved CG budget must escalate to the materialized direct
     factor (≙ the reference's CG -> dense-LDL switch on solve failure,
     hdsdp_linsolver.c:1827-1857) and still reach the optimum."""
-    prob = _prob(None, "theta60")
+    prob = _prob("theta60")
     ref = HDSDPSolver(prob).optimize()
     s = HDSDPSolver(prob, kkt_mode="free", kkt_free_maxiter=2)
     r = s.optimize()
@@ -194,7 +195,7 @@ def test_operator_cg_stall_no_materialize_cap():
     """Above the materialize cap the ladder must stop at tier 2 (extended
     CG) without crashing; with a realistic extended budget the solve
     still converges (CG is exact in at most m steps)."""
-    prob = _prob(None, "theta60")
+    prob = _prob("theta60")
     s = HDSDPSolver(
         prob, kkt_mode="free", kkt_free_maxiter=60, op_materialize_cap=0
     )

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import instances
 from hdsdp_tpu.io.sdpa import read_sdpa
 from hdsdp_tpu.models.problem import SDPProblem
 from hdsdp_tpu.models.synthetic import random_sdpa
@@ -19,9 +20,9 @@ def mesh():
     return make_mesh(8)
 
 
-@pytest.mark.parametrize("fname", ["theta1.dat-s", "truss1.dat-s"])
-def test_sharded_kkt_matches_single(examples_dir, mesh, fname):
-    data = read_sdpa(f"{examples_dir}/{fname}")
+@pytest.mark.parametrize("fname", ["theta50.dat-s", "control10.dat-s"])
+def test_sharded_kkt_matches_single(mesh, fname):
+    data = read_sdpa(instances.path(fname))
     prob = SDPProblem.from_sdpa(data)
     ref = ConeSystem(prob)
     sh = ShardedConeSystem(prob, mesh)
@@ -90,9 +91,10 @@ def test_sharded_end_to_end(mesh):
 
 
 def test_graft_entry_and_dryrun():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     import jax

@@ -3,8 +3,7 @@
 Gates the machinery that only engages at scale — AdaptiveCG with the
 stale f32 preconditioner (ref ADPCG refresh policy), the regularization
 ladder, the PSDP stall exit — which the default suite (m <= ~900)
-never reaches.  Run each round via benchmarks/run_slow_lane.sh; the
-output is recorded in NOTES.md so a regression is visible, not manual.
+never reaches.  Run via benchmarks/run_slow_lane.sh.
 """
 
 import os

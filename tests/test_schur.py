@@ -7,6 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
+import instances
 from hdsdp_tpu.io.sdpa import read_sdpa
 from hdsdp_tpu.models.problem import SDPProblem
 from hdsdp_tpu.solver.cones import ConeSystem
@@ -39,9 +40,9 @@ def naive_kkt(A_all, C, U, Rd):
     return M, asinv, asinvrdsinv, asinvcsinv, csinv, csinvcsinv, csinvrdsinv
 
 
-@pytest.mark.parametrize("fname", ["mcp100.dat-s", "theta1.dat-s", "truss1.dat-s", "gpp100.dat-s"])
-def test_kkt_cross_validation(examples_dir, fname):
-    data = read_sdpa(f"{examples_dir}/{fname}")
+@pytest.mark.parametrize("fname", ["maxcut100.dat-s", "theta50.dat-s", "control10.dat-s", "gpp100.dat-s"])
+def test_kkt_cross_validation(fname):
+    data = read_sdpa(instances.path(fname))
     prob = SDPProblem.from_sdpa(data)
     cones = ConeSystem(prob)
 
@@ -103,8 +104,8 @@ def test_kkt_cross_validation(examples_dir, fname):
     np.testing.assert_allclose(np.asarray(kkt_corr.asinvrdsinv), rd_ref, atol=1e-8)
 
 
-def test_ratio_test_exact(examples_dir):
-    data = read_sdpa(f"{examples_dir}/theta1.dat-s")
+def test_ratio_test_exact():
+    data = read_sdpa(instances.path("theta50.dat-s"))
     prob = SDPProblem.from_sdpa(data)
     cones = ConeSystem(prob)
     rng = np.random.default_rng(3)
@@ -258,85 +259,6 @@ def test_torus_class_end_to_end():
     diag = (blk.row == blk.col) & cmask
     c_dot_quarter_eye = float(_np.sum(blk.val[diag])) / 4.0
     assert r.d_obj <= c_dot_quarter_eye + 1e-6
-
-
-def test_slot_schur_hp_matches_f64():
-    """bf16-MXU (Ozaki-sliced) assembly must agree with the f64 einsum
-    path to double-single accuracy on a slot-major group (the same
-    cross-validation discipline as HUtilKKTCheck)."""
-    import jax.numpy as jnp
-    from hdsdp_tpu.models.synthetic import theta_sdpa
-    from hdsdp_tpu.ops import schur as schur_ops
-    from hdsdp_tpu.solver.cones import ConeSystem
-
-    data = theta_sdpa(n=40, n_edges=120, seed=3)
-    prob = SDPProblem.from_sdpa(data)
-    cones = ConeSystem(prob)
-    # slot layout (no bounded-support shortcut) so the hp matmul path
-    # is the one under test; Fs in the specialized layout is a
-    # shape-only placeholder now
-    ga = ConeSystem(prob, layout="slot").groups[0]
-    assert ga.Fs is not None  # slot-major layout
-
-    rng = np.random.default_rng(0)
-    n = ga.Fs.shape[2]
-    Q = rng.standard_normal((n, n))
-    U = jnp.asarray(Q @ Q.T + n * np.eye(n), jnp.float64)[None]
-
-    o64 = schur_ops.group_schur(ga, U, prob.m, with_m=True, hp=False)
-    ohp = schur_ops.group_schur(ga, U, prob.m, with_m=True, hp=True)
-    scale = float(jnp.max(jnp.abs(o64.M)))
-    assert float(jnp.max(jnp.abs(ohp.M - o64.M))) < 1e-10 * scale
-    assert np.allclose(np.asarray(ohp.asinv), np.asarray(o64.asinv),
-                       rtol=1e-10, atol=1e-10 * scale)
-
-
-def test_kkt_hp_end_to_end():
-    """Forced hp assembly must reproduce the default solve."""
-    from hdsdp_tpu.models.synthetic import theta_sdpa
-    from hdsdp_tpu.solver.solver import HDSDPSolver
-
-    data = theta_sdpa(n=50, n_edges=300, seed=4)
-    prob = SDPProblem.from_sdpa(data)
-    r0 = HDSDPSolver(prob, verbose=False, fused=False).optimize()
-    r1 = HDSDPSolver(prob, verbose=False, fused=False, kkt_hp="on").optimize()
-    assert r1.status == r0.status == "PRIMAL_DUAL_OPTIMAL"
-    assert r1.d_obj == pytest.approx(r0.d_obj, rel=1e-7)
-    assert np.max(np.abs(r1.dimacs)) < 1e-2
-
-
-def test_group_dual_hp_matches_f64():
-    """bf16-MXU dual-slack assembly must agree with the f64 einsum and
-    preserve an end-to-end solve when forced at small scale."""
-    import jax.numpy as jnp
-    from hdsdp_tpu.models.synthetic import theta_sdpa
-    from hdsdp_tpu.ops import schur as schur_ops
-    from hdsdp_tpu.solver.cones import ConeSystem
-    from hdsdp_tpu.solver.solver import HDSDPSolver
-
-    data = theta_sdpa(n=40, n_edges=120, seed=3)
-    prob = SDPProblem.from_sdpa(data)
-    cones = ConeSystem(prob)
-    ga = ConeSystem(prob, layout="slot").groups[0]  # force hp path
-    rng = np.random.default_rng(5)
-    y = jnp.asarray(rng.standard_normal(prob.m))
-    S0 = schur_ops.group_dual(ga, -1.0, -1.0, y, 2.0, hp=False)
-    S1 = schur_ops.group_dual(ga, -1.0, -1.0, y, 2.0, hp=True)
-    scale = float(jnp.max(jnp.abs(S0)))
-    assert float(jnp.max(jnp.abs(S1 - S0))) < 1e-10 * scale
-
-    # end-to-end with the dual-hp assembly forced on (host loop)
-    solver = HDSDPSolver(prob, verbose=False, fused=False, kkt_hp="on")
-    solver_ref = HDSDPSolver(prob, verbose=False, fused=False)
-    # force dual_hp despite the small work size
-    import hdsdp_tpu.solver.algo as algo_mod
-    ipm = algo_mod.DualIPM(prob, solver.params)
-    ipm.cones.kkt_hp = True
-    ipm.cones.dual_hp = True
-    ipm.solve()
-    r_ref = solver_ref.optimize()
-    assert ipm.status == "PRIMAL_DUAL_OPTIMAL" == r_ref.status
-    assert float(ipm.d_obj_val) == pytest.approx(r_ref.d_obj, rel=1e-7)
 
 
 def test_diag_bucket_matches_slot_path():
